@@ -5,7 +5,7 @@ The phase profile (bench/venice_profile.py) shows the segmented PCG is
 matvec's constituent XLA ops in isolation so the optimization lands on the
 measured-dominant one (scatter vs gather vs cumsum vs elementwise).
 
-Run alone on the real TPU: python bench/matvec_profile.py
+Run alone on the GPU: python bench/matvec_profile.py
 """
 
 from __future__ import annotations
@@ -30,9 +30,9 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    jax.config.update(
-        "jax_compilation_cache_dir", os.path.expanduser("~/.pyslam_tpu_jax_cache")
-    )
+    from pyslam_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
 
     C, L = args.cams, args.pts
     Mp = args.pts * args.obs
@@ -152,9 +152,9 @@ def variants():
     import numpy as np
     import time, os
 
-    jax.config.update(
-        "jax_compilation_cache_dir", os.path.expanduser("~/.pyslam_tpu_jax_cache")
-    )
+    from pyslam_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     C, L, Mp = 1700, 1000000, 5000000
     rng = np.random.default_rng(0)
     ci = np.sort(rng.integers(0, C, Mp)).astype(np.int32)

@@ -9,13 +9,13 @@ one command:
 
 For every ``*.g2o`` in <dir>: load (SE2 or SE3), solve with the pySLAM-CPU
 architectural stand-in (per-block python + scipy spsolve, f64) AND with the
-TPU-native auto-dispatched solver, and emit a parity row (chi2s, walls,
+auto-dispatched device solver, and emit a parity row (chi2s, walls,
 speedup, parity gate at 1%).
 
 For every BAL file (``problem-*.txt`` / ``*.bal``): load, solve with the
-TPU Schur path, and report converged chi2 against the half-pixel-residual
+device Schur path, and report converged chi2 against the half-pixel-residual
 expectation (the stand-in's stereo BA model does not speak BAL's radial
-camera, so BAL rows carry the TPU result + a cost-decrease gate only).
+camera, so BAL rows carry the device result + a cost-decrease gate only).
 
 Self-test (no datasets needed): ``--selftest`` writes synthetic
 sphere/manhattan g2o files and a synthetic BAL file to a temp dir through
@@ -52,7 +52,7 @@ def _parity_g2o(path):
         data, max_iters=50 if n <= 1000 else 30
     )
     g = build.pose_graph(data)
-    # stiff 2D graphs need exact solves (docs/PERFORMANCE.md); solve_auto
+    # stiff 2D graphs need exact solves; solve_auto
     # routes by structure, matching the recorded bench configurations
     opts = Options(
         method="gn" if data.dim == 2 else "lm",
@@ -226,9 +226,9 @@ def main():
 
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir", os.path.expanduser("~/.pyslam_tpu_jax_cache")
-    )
+    from pyslam_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     if args.selftest:
         import tempfile
 

@@ -30,9 +30,9 @@ def main():
 
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir", os.path.expanduser("~/.pyslam_tpu_jax_cache")
-    )
+    from pyslam_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from pyslam_tpu.graph import build

@@ -13,7 +13,7 @@ framework in one pipeline.
      from their first observation);
   6. TrajectoryMetrics reports ATE at each stage.
 
-Measured (TPU v5 lite, 40 frames): odometry 12.77 cm -> pose graph 8.80 cm
+Measured (synthetic sequence, 40 frames): odometry 12.77 cm -> pose graph 8.80 cm
 -> joint SLAM 0.38 cm ATE (3910 landmarks, 12000 observations).
 """
 

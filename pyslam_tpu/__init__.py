@@ -1,7 +1,7 @@
-"""pyslam_tpu — a TPU-native nonlinear least-squares SLAM framework.
+"""pyslam_tpu — a JAX nonlinear least-squares SLAM framework for accelerators.
 
 Built from scratch with the capabilities of ``utiasSTARS/pyslam`` (+ its
-``liegroups`` dependency), re-designed TPU-first per SURVEY.md:
+``liegroups`` dependency), re-designed device-first per SURVEY.md:
 
   * ``lie``       — SE2/SE3/SO2/SO3 functional cores + object wrappers (L0)
   * ``utils``     — invsqrt / stackmul / bilinear_interpolate (L1)
@@ -9,9 +9,9 @@ Built from scratch with the capabilities of ``utiasSTARS/pyslam`` (+ its
   * ``losses``    — robust M-estimators for IRLS (L3)
   * ``residuals`` — residual library with analytic Jacobians (L4a)
   * ``problem``   — Options / Problem Ceres-style solver API (L4b)
-  * ``graph``     — struct-of-arrays factor batches (TPU-native core)
+  * ``graph``     — struct-of-arrays factor batches (the device-side core)
   * ``solver``    — GN/LM under jit, block-sparse assembly, Schur, PCG
-  * ``dist``      — multi-chip/multi-host sharding (mesh, partitioner)
+  * ``dist``      — multi-device/multi-host sharding (mesh, partitioner)
   * ``pipelines`` — dense stereo / RGB-D visual odometry frontends (L5)
   * ``eval``      — TrajectoryMetrics / visualizers (L6)
   * ``io``        — g2o / BAL readers, synthetic dataset generators
@@ -21,11 +21,13 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# TPU MXU matmuls default to single-pass bf16, which costs ~4e-3 relative
-# error in pose composition and normal-equation products — fatal for a
-# nonlinear least-squares solver (SURVEY.md §7 hard part #1).  This framework
-# therefore defaults dot products to full f32 precision; perf-critical kernels
-# that can tolerate bf16 request it explicitly.  Override after import with
+# On the H100, XLA may run float32 matrix products in TF32 on the tensor
+# cores, which keeps about three decimal digits (~1e-3 relative error) in
+# pose composition and normal-equation products — fatal for a nonlinear
+# least-squares solver (SURVEY.md §7 hard part #1).  "highest" keeps float32
+# products in float32; chip_smoke.py's precision phase checks that it takes
+# effect on the card.  Kernels that can tolerate less request it explicitly.
+# Override after import with
 # jax.config.update("jax_default_matmul_precision", ...) if desired.
 _jax.config.update("jax_default_matmul_precision", "highest")
 

@@ -1,4 +1,4 @@
-"""Debug & validation utilities — the TPU-native analogue of the sanitizer
+"""Debug & validation utilities — the on-device analogue of the sanitizer
 row in SURVEY.md §5: under XLA's functional model there are no data races;
 the corresponding hazards are NaN/Inf propagation and shape/index bugs.
 

@@ -8,7 +8,7 @@ manifold update run replicated.  Variable blocks are replicated — the
 variable-sharded path lives in schur_reduce.py / partitioner.py.
 
 Everything is expressed with shard_map over a Mesh, so the same code runs on
-an 8-device CPU test mesh and a TPU pod slice.
+an 8-device CPU test mesh and on several GPUs.
 """
 
 from __future__ import annotations

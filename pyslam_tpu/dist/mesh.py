@@ -1,9 +1,10 @@
-"""Device-mesh utilities for multi-chip / multi-host solving (SURVEY.md §2.3).
+"""Device-mesh utilities for multi-device / multi-host solving (SURVEY.md §2.3).
 
 The communication model is pure XLA collectives over an explicit
-``jax.sharding.Mesh`` (psum / all_gather / reduce_scatter compiled onto ICI
-within a slice, DCN across slices) — the TPU-native replacement for the
-distributed backend the reference lacks.
+``jax.sharding.Mesh`` (psum / all_gather / reduce_scatter, which XLA hands
+to NCCL on GPUs) — the on-device replacement for the distributed backend
+the reference lacks.  The cards of one H100 host are joined all to all by
+NVLink, so meshes are flat and follow the algorithm alone.
 """
 
 from __future__ import annotations

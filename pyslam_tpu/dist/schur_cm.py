@@ -1,7 +1,7 @@
 """Component-major landmark-sharded Schur BA — the multi-chip form of
 solver/schur_large.py (BASELINE.json config #5 at full Venice scale).
 
-Combines the two measured-at-scale designs:
+Combines the two designs:
 
   * per-observation / per-landmark data stored COMPONENT-MAJOR (flat
     vectors; no (N, d, d) tile padding — solver/schur_large.py rationale),
@@ -10,19 +10,18 @@ Combines the two measured-at-scale designs:
     S-matvec,
   * within each chip's slab observations are camera-sorted, so every
     camera-direction reduction is a local cumsum + boundary difference
-    (~6 ms vs ~38 ms scatter per multi-M elements) followed by the psum;
+    instead of a scatter, followed by the psum;
     the landmark direction keeps chip-local scatter-adds (collision-free).
 
 Linearization streams over observation chunks under ``lax.scan``, so no
 (M, m, dof) Jacobian tensor materializes per chip.
 
-MEASURED CROSSOVER (TPU v5 lite, round-4 batched op shapes): this path is
-now FASTER than the block-major sharded path (dist/schur_reduce.py) above
-~250k observations per device — 2.70 vs 3.85 s/it at 360k obs (identical
-chi2); schur_reduce still wins below (0.67 vs 1.37 s/it at 60k, 0.94 vs
-1.54 at 150k), where the ~15 flat ops per matvec are each launch-latency
-bound.  route_auto encodes the crossover (cm_obs_crossover) alongside the
-original memory gate (multi-M slabs where the block layout OOMs).
+CROSSOVER: on the accelerator the system was first built for, this path
+beat the block-major sharded path (dist/schur_reduce.py) above ~250k
+observations per device and lost below, where the ~15 flat ops per matvec
+are each launch-latency bound.  route_auto encodes that crossover
+(cm_obs_crossover) alongside the memory gate (slabs whose block layout
+does not fit the device).  Neither has been measured on the H100.
 """
 
 from __future__ import annotations

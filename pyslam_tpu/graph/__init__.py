@@ -1,4 +1,4 @@
-"""Struct-of-arrays factor-graph core (TPU-native L4 layer, SURVEY.md §7)."""
+"""Struct-of-arrays factor-graph core (device-side L4 layer, SURVEY.md §7)."""
 
 from . import factor_defs  # noqa: F401  (registers factor kernels)
 from .core import (FactorBatch, FactorGraph, VariableBlock, MANIFOLDS,

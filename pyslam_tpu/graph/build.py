@@ -256,8 +256,7 @@ def ba_graph(data, loss=None, dtype=jnp.float32, init: str = "noisy") -> FactorG
     const = np.zeros(n_cams, bool)
     const[0] = True  # gauge anchor
     cam = StereoCamera(**{k: v for k, v in data.camera.items()})
-    # unbatched (3,3): broadcasts in the kernels; a (M,3,3) copy would tile
-    # to 4 KB/observation in HBM (see solver/schur_large.py)
+    # unbatched (3,3): broadcasts in the kernels; no (M,3,3) copy
     sqrt_info = jnp.eye(3, dtype=dtype)
     blocks = {
         "poses": VariableBlock.create("se3", jnp.asarray(T0, dtype), const),

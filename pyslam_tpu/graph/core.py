@@ -1,6 +1,6 @@
 """Factor-graph core: variables and factors as struct-of-arrays batches.
 
-This is the TPU-native replacement for the reference's per-block Python object
+This is the on-device replacement for the reference's per-block Python object
 model (pyslam/problem.py residual-block list per SURVEY.md §3.1 hot loop 1):
 heterogeneity lives in a *static* dict of typed batches, each evaluated by one
 broadcast-batched kernel; there is no per-factor Python anywhere on the hot
@@ -308,7 +308,7 @@ class FactorBatch:
 @dataclasses.dataclass
 class FactorGraph:
     """Ordered variable blocks + factor batches, with the global tangent
-    layout.  The TPU-native analogue of the reference's ``Problem`` state
+    layout.  The on-device analogue of the reference's ``Problem`` state
     (param_dict + block list, pyslam/problem.py per SURVEY.md §2.1)."""
 
     blocks: dict  # name -> VariableBlock (SORTED name order = tangent order)

@@ -1,8 +1,8 @@
 """Pose-graph initialization: spanning-tree odometry integration.
 
 g2o files in the wild sometimes carry poor (or no) vertex estimates; LM from
-a bad basin can converge to the wrong optimum (measured on M3500-class
-graphs, docs/PERFORMANCE.md).  This module builds an initial guess by
+a bad basin can converge to the wrong optimum (seen on M3500-class
+graphs).  This module builds an initial guess by
 integrating the relative-pose measurements along a breadth-first spanning
 tree of the graph — the standard cheap initializer.
 
@@ -93,7 +93,7 @@ def chordal_init(
     fixed.  Far closer to the basin of the optimum than odometry/spanning
     -tree integration on loopy graphs, so LM needs fewer iterations.
 
-    TPU-native: both stages are FactorGraphs over euclidean blocks
+    Device-side: both stages are FactorGraphs over euclidean blocks
     (``chordal_rot`` / ``chordal_trans`` kernels, graph/factor_defs.py)
     solved by the standard dispatch (dense Cholesky / ELL PCG / sparse
     Cholesky) — one exact GN step per stage; only the SVD projection runs
@@ -112,7 +112,7 @@ def chordal_init(
         # dense exact below the usual ceiling; ELL PCG above.  Deliberately
         # NOT route_auto: it sends large 3-dof euclidean blocks to the
         # multifrontal path, whose planning cost (and, on 3D topologies,
-        # fill — docs/PERFORMANCE.md round-3 negative result) is absurd for
+        # fill) is absurd for
         # a one-shot initializer that tolerates rtol 1e-6.
         if g.total_dof <= 12000:
             return solve_auto(g, opts)

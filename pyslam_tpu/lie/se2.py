@@ -1,4 +1,4 @@
-"""SE(2) — planar rigid transforms, functional TPU-native core.
+"""SE(2) — planar rigid transforms, functional device-side core.
 
 Capability parity with ``liegroups/numpy/se2.py`` (reference dep; SURVEY.md §1
 L0).  Transforms are ``(..., 3, 3)`` homogeneous matrices; tangent vectors are

@@ -1,4 +1,4 @@
-"""SE(3) — rigid transforms, functional TPU-native core.
+"""SE(3) — rigid transforms, functional device-side core.
 
 Capability parity with ``liegroups/numpy/se3.py`` (reference dep; SURVEY.md §1
 L0): ``exp``, ``log``, ``wedge``, ``vee``, ``curlywedge``, ``adjoint``,

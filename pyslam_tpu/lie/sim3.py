@@ -12,7 +12,7 @@ Representation: ``(..., 4, 4)`` matrices ``[[s*R, t], [0, 1]]``.  Tangent
 vectors are ``xi = [rho (3), phi (3), sigma (1)]`` — translation first
 (matching the se3 convention), log-scale last.
 
-Design notes (TPU-first):
+Design notes (device-first):
   * ``exp``/``log`` use the closed-form ``W = a*I + b*phi^ + c*phi^2``
     matrix (the integral of ``e^{sigma*u} * exp(u*phi^)``) with Taylor
     branches for small sigma / small theta — pure branch-free ``jnp.where``
@@ -232,7 +232,7 @@ def left_jacobian(xi):
     The series is entire (factorial convergence), so the fixed
     ``_JL_TERMS``-term Horner sum (26 terms: first dropped term is below
     1e-11 at ||ad|| = 4.5) is exact to f64 roundoff at any argument the
-    solver sees; each term is one batched 7x7 matmul (MXU-friendly, no
+    solver sees; each term is one batched 7x7 matmul (matmul-friendly, no
     data-dependent loop)."""
     xi = jnp.asarray(xi)
     A = _ad(xi)

@@ -1,4 +1,4 @@
-"""SO(2) — planar rotation group, functional TPU-native core.
+"""SO(2) — planar rotation group, functional device-side core.
 
 Capability parity with ``liegroups/numpy/so2.py`` (reference dep; SURVEY.md §1
 L0).  Rotations are ``(..., 2, 2)`` arrays; all ops broadcast over leading

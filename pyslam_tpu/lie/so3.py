@@ -1,17 +1,17 @@
-"""SO(3) — rotation group, functional TPU-native core.
+"""SO(3) — rotation group, functional device-side core.
 
 Capability parity with the ``liegroups`` dependency of the reference
 (``liegroups/numpy/so3.py``; structure per SURVEY.md §1 L0): ``exp``, ``log``,
 ``wedge``, ``vee``, ``left_jacobian``, ``inv_left_jacobian``, ``inv``,
 ``perturb``, plus composition helpers.
 
-Design (TPU-first, not a translation):
+Design (device-first, not a translation):
   * Rotations are plain ``(..., 3, 3)`` arrays — no objects on the hot path.
     Every function broadcasts over arbitrary leading batch dimensions, so
     factor kernels are natively batched without a vmap layer.
   * All small-angle branches use the select-with-safe-denominator pattern so
     functions are jit-safe and NaN-free under ``jax.grad``/``jax.jacfwd``.
-  * Default precision follows the input dtype (f32 on TPU, f64 in CPU tests).
+  * Default precision follows the input dtype (f32 on the device, f64 in CPU tests).
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ residual vector (the reference's semantics):
   * ``weight(e)``    — the IRLS weight psi(e) / e, folded into the normal
                        equations as sqrt(w) scaling of residuals & Jacobians.
 
-TPU-first design: losses are frozen pytree dataclasses so they trace through
+Device-first design: losses are frozen pytree dataclasses so they trace through
 ``jit``; the weight pass is fused into the residual kernels by XLA (SURVEY.md
 §2.2 "fused IRLS reweighting").
 """

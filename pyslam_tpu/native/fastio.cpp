@@ -5,7 +5,7 @@
 // reference authored no native code).  At the scales this framework targets
 // (Venice-class BAL: 4.65M observations ≈ 25M float tokens, 50k-pose g2o:
 // 150k tagged lines) CPython tokenisation becomes the pipeline bottleneck —
-// tens of seconds before the first TPU dispatch.  These two kernels move
+// tens of seconds before the first device dispatch.  These two kernels move
 // tokenisation to C++ (std::from_chars, single pass, zero allocation);
 // everything downstream stays vectorised numpy.
 //

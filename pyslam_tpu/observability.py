@@ -2,7 +2,7 @@
 logs, profiling helpers, and solver-state snapshot/resume.
 
 The reference has none of this (its only observability is TrajectoryMetrics
-plots); these are the TPU-native equivalents mandated for the build:
+plots); these are the on-device equivalents mandated for the build:
 
   * iteration logs come post-hoc from the stacked per-iteration arrays the
     jitted LM loop already records (SolveInfo) — zero host round-trips

@@ -3,7 +3,7 @@
 disparity / depth pyramids with precomputed 3D points for the photometric
 residual.
 
-TPU-first: pyramids are plain (H, W) arrays per level; every per-level
+Device-first: pyramids are plain (H, W) arrays per level; every per-level
 product (intensities, triangulated points, validity mask) is precomputed once
 as flat static-shaped arrays so each tracking solve is pure device compute
 with no per-frame recompilation.  Disparity comes from OpenCV's stereo
@@ -55,7 +55,7 @@ def compute_disparity(
     num_disparities: int | None = None,
 ):
     """Disparity via OpenCV block matching (reference behavior, SURVEY.md
-    §3.3) or the TPU-native plane-sweep matcher (``matcher="tpu"``,
+    §3.3) or the on-device plane-sweep matcher (``matcher="plane_sweep"``,
     pipelines/stereo_match.py — one jitted program, runs on device).
     Inputs are float images in [0, 1] or uint8.  Invalid pixels are
     returned as NaN.  ``num_disparities`` defaults to the largest multiple
@@ -63,7 +63,7 @@ def compute_disparity(
     W = im_left.shape[1]
     if num_disparities is None:
         num_disparities = max(16, min(128, ((W // 3) // 16) * 16))
-    if matcher == "tpu":
+    if matcher == "plane_sweep":
         from .stereo_match import block_match
 
         def to_f(im):
@@ -118,16 +118,16 @@ class DenseKeyframe:
     identical across keyframes — so the per-level tracking solve compiles
     once for a whole run regardless of image content.  Together with the
     fused one-dispatch-per-frame pyramid solve (pipelines/dense.py) this
-    took VGA RGB-D tracking from 2.56 s/frame to 276 ms/frame (3.6 fps) on
-    TPU v5 lite with 0.01 mm error on the synthetic benchmark.
+    keeps VGA RGB-D tracking to one compiled program per level; its speed
+    on the H100 is not measured.
     ``pixel_budget=None`` keeps every pixel (reference behavior)."""
 
     def __init__(
         self, im, depth_or_disp, camera, pyrlevels=4, min_grad=0.0, T_w=None,
         pixel_budget: int | None = 24576, dtype=np.float32,
     ):
-        # f32 device arrays by default: f64 VPU ops are ~10x slower on TPU
-        # and photometric tracking accuracy is intensity-noise-limited anyway
+        # f32 device arrays by default: photometric tracking accuracy is
+        # intensity-noise-limited, so f64 would only cost bandwidth
         self.T_w = T_w  # pose of the world in keyframe coords (set by pipeline)
         self.pyrlevels = pyrlevels
         self.dtype = dtype

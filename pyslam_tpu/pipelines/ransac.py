@@ -2,7 +2,7 @@
 ``FrameToFrameRANSAC`` per SURVEY.md §2.1 — existence flagged [R, low], built
 for capability coverage).
 
-TPU-first design: the reference-style sequential hypothesize-and-test loop
+Device-first design: the reference-style sequential hypothesize-and-test loop
 becomes ONE batched pass — M minimal samples drawn up front, M rigid
 transforms estimated by batched Kabsch (vmapped 3x3 SVD), M x N reprojection
 error matrices evaluated in a single fused kernel, argmax inlier count, then

@@ -1,4 +1,4 @@
-"""TPU-native stereo block matching — the on-device replacement for the
+"""On-device stereo block matching — the on-device replacement for the
 reference's OpenCV disparity stage (pyslam/pipelines/keyframes.py uses an
 OpenCV stereo matcher, SURVEY.md §3.3 "the only OpenCV dependency").
 
@@ -8,7 +8,7 @@ Design (one jitted program, no cost volume in memory):
     holds only (H, W) running statistics, so peak memory is O(H*W), not
     O(H*W*D);
   * per hypothesis: SAD over a (2r+1)^2 window via TWO cumulative sums
-    (integral image) — O(1) per pixel per window, pure VPU;
+    (integral image) — O(1) per pixel per window, elementwise only;
   * winner-take-all with subpixel parabola refinement: the scan carries the
     cost at best-1 and best+1 so the 3-point fit needs no second pass;
   * validity: texture (window SAD range), uniqueness (second-best outside
@@ -17,7 +17,7 @@ Design (one jitted program, no cost volume in memory):
     and border/disparity-range masks — invalid pixels come back NaN (the
     convention keyframes.py expects).
 
-Measured as a drop-in for ``compute_disparity(matcher="tpu")``.
+Used as the drop-in ``compute_disparity(matcher="plane_sweep")``.
 """
 
 from __future__ import annotations
@@ -33,11 +33,9 @@ def _box_sum(x, r):
     """(H, W) -> windowed sum over (2r+1)^2 via integral image (edge-safe:
     windows are cropped at the borders).
 
-    MEASURED (TPU v5 lite, VGA, D=128 sweep): this static-index gather form
-    runs the whole matcher in 129 ms; an edge-padded pure-slice variant
-    (thought to avoid 'slow lane gathers') measured 214 ms — XLA lowers
-    these clipped-iota gathers well, and the slice variant pays two extra
-    padded materializations per hypothesis.  Keep the gather form."""
+    The static-index gather form was chosen over an edge-padded pure-slice
+    variant, which pays two extra padded materializations per hypothesis;
+    the two have not been compared on the H100."""
     H, W = x.shape
     ii = jnp.cumsum(jnp.cumsum(x, axis=0), axis=1)
     ii = jnp.pad(ii, ((1, 0), (1, 0)))

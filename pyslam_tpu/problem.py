@@ -4,7 +4,7 @@
 ``solve_one_iter``, ``eval_cost``, ``compute_covariance``,
 ``get_covariance_block``.
 
-TPU-native lowering: where the reference iterates residual blocks in Python
+On-device lowering: where the reference iterates residual blocks in Python
 (hot loop 1, SURVEY.md §3.1), this builder groups blocks by factor kind into
 struct-of-arrays FactorBatches, packs named parameters into contiguous
 VariableBlocks per manifold, and runs the fully-jitted GN/LM core

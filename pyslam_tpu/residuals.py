@@ -7,7 +7,7 @@ VO stack).
 Each object holds one measurement and exposes the reference's
 ``evaluate(params, compute_jacobians) -> (residual, jacobians)`` — but the
 math is *shared with the batched solver*: evaluate() adds a batch axis and
-calls the same registered factor kernel the TPU solve path uses
+calls the same registered factor kernel the device solve path uses
 (graph/factor_defs.py), so the object API and the struct-of-arrays path can
 never drift apart.
 

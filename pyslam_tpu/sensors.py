@@ -2,9 +2,9 @@
 §2.1): ``StereoCamera`` and ``RGBDCamera`` with ``project`` / ``triangulate``
 (both with analytic 3x3 Jacobians) and validity masks.
 
-TPU-first: cameras are frozen pytree dataclasses; ``project``/``triangulate``
+Device-first: cameras are frozen pytree dataclasses; ``project``/``triangulate``
 broadcast over arbitrary leading batch dims — a (N, 3) point cloud maps to one
-fused VPU pass under jit, no per-point loop.
+fused elementwise pass under jit, no per-point loop.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""GN/LM solver core (TPU-native replacement of pyslam/problem.py solve
+"""GN/LM solver core (the on-device replacement of pyslam/problem.py solve
 machinery; SURVEY.md §3.1)."""
 
 import numpy as np
@@ -81,10 +81,20 @@ __all__ += [
 ]
 
 
-# TPU HBM tile padding: a (d, d) block occupies one (8, 128) f32 tile in
-# HBM regardless of d (CLAUDE.md measurements) — memory gates must use the
-# padded footprint, not the logical one.
-_TILE_BYTES = 8 * 128 * 4
+def device_memory_budget(mesh=None):
+    """Bytes one device of ``mesh`` (default: the first visible device) can
+    hold, from its own ``memory_stats()["bytes_limit"]``.  None where the
+    device reports no limit (the CPU backend): no memory gate applies."""
+    import jax
+
+    dev = jax.devices()[0] if mesh is None else mesh.devices.flat[0]
+    stats = dev.memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    return int(limit) if limit else None
+
+
+def _over_budget(nbytes, budget):
+    return budget is not None and nbytes > budget
 
 
 def _mono_low_parallax(graph, pose_name, lm_name, max_obs=500_000, spread_thresh=1.4e-3):
@@ -129,7 +139,7 @@ def route_auto(
     mesh=None,
     dense_dof_limit: int = 12000,
     dense_hpl_budget_bytes: int = 1 << 30,
-    device_hbm_budget_bytes: int = 10 << 30,
+    device_hbm_budget_bytes: int | None = None,
     tiny_dof: int = 2000,
     schur_sparse_pair_budget: int = 2_000_000,
     cm_obs_crossover: int = 250_000,
@@ -141,18 +151,22 @@ def route_auto(
     the reduced camera system — many-poses/few-landmarks graphs with sparse
     co-observation) / ``schur_pcg`` / ``schur_sqrt`` (f32 mono low-parallax
     conditioning) / ``schur_large``.
-    Mesh routes (VERDICT r2 next #3 — the system, not the user, picks the
-    sharding strategy): ``factor_parallel`` (tiny graphs: replicating is
-    free, factor eval dominates), ``pose_sharded`` (single-block graphs
-    whose ELL store exceeds one chip's HBM budget — below that a replicated
-    single-chip solve_ell is strictly faster, measured ~45x at 1 device),
-    ``schur_reduce`` (camera+landmark), ``schur_cm`` (camera+landmark
-    whose per-device observation slab exceeds the block-layout memory
-    budget — the component-major layout is the only one that fits multi-M
-    slabs — OR exceeds ``cm_obs_crossover`` observations per device: after
-    the round-4 batched op shapes the component-major path is FASTER above
-    ~250k obs/device, measured 2.70 vs 3.85 s/it at 360k on the real chip;
-    schur_reduce still wins below, 0.67 vs 1.37 s/it at 60k).
+    Mesh routes (the system, not the user, picks the sharding strategy):
+    ``factor_parallel`` (tiny graphs: replicating is free, factor eval
+    dominates), ``pose_sharded`` (single-block graphs whose ELL store
+    exceeds one device's memory — below that a replicated single-device
+    solve_ell is faster), ``schur_reduce`` (camera+landmark), ``schur_cm``
+    (camera+landmark whose per-device observation slab exceeds the device's
+    memory in the block layout, OR exceeds ``cm_obs_crossover``
+    observations per device).
+
+    Memory gates use logical bytes (``d*d*itemsize`` per block) against
+    ``device_hbm_budget_bytes``, which defaults to the mesh devices' own
+    ``memory_stats()["bytes_limit"]``; where the device reports no limit
+    (the CPU), no memory gate applies.  The crossovers
+    (``cm_obs_crossover``, ``dense_dof_limit``, the 2M-observation
+    ``schur_large`` cut) were tuned on the accelerator the system was first
+    built for and have not been measured on the H100.
     """
     blocks = graph.blocks
     kinds = {name: b.kind for name, b in blocks.items()}
@@ -173,18 +187,26 @@ def route_auto(
     n_dev = 1 if mesh is None else int(np.prod(list(mesh.shape.values())))
 
     if mesh is not None and n_dev > 1:
+        budget = (
+            device_hbm_budget_bytes
+            if device_hbm_budget_bytes is not None
+            else device_memory_budget(mesh)
+        )
         if is_ba:
             pose_name, lm_name = lie_blocks[0], euc_blocks[0]
             binary = [fb for fb in graph.batches if fb.slots == (pose_name, lm_name)]
             n_obs = sum(fb.n for fb in binary)
-            # per-device block-layout slab: ~3 padded tiles per observation
-            # (W + per-obs Hpp/Hll contributions).  schur_cm's flat
+            # per-device block-layout slab: per observation, its W block
+            # plus its Hpp and Hll contributions.  schur_cm's flat
             # component-major layout hardcodes (6, 3)-dof blocks; 9-dof
             # bal_cam9 graphs stay on the dof-generic schur_reduce.
+            pb, lb = blocks[pose_name], blocks[lm_name]
+            obs_bytes = (
+                pb.dof * lb.dof + pb.dof * pb.dof + lb.dof * lb.dof
+            ) * pb.values.dtype.itemsize
             obs_per_dev = n_obs // max(n_dev, 1)
-            slab_bytes = obs_per_dev * 3 * _TILE_BYTES
-            if blocks[pose_name].dof == 6 and (
-                slab_bytes > device_hbm_budget_bytes
+            if pb.dof == 6 and (
+                _over_budget(obs_per_dev * obs_bytes, budget)
                 or obs_per_dev > cm_obs_crossover
             ):
                 return "schur_cm"
@@ -193,20 +215,20 @@ def route_auto(
             if graph.total_dof <= tiny_dof:
                 return "factor_parallel"
             blk = next(iter(blocks.values()))
-            # symmetric ELL store: nb * K padded tiles; K ~ 1 + avg degree
+            # symmetric ELL store: nb * K blocks of (d, d); K ~ 1 + avg degree
             n_edges = sum(
                 fb.n for fb in graph.batches if len(set(fb.slots)) == 1 and len(fb.slots) == 2
             )
             K_est = 1 + int(np.ceil(2 * n_edges / max(blk.n, 1))) * 2  # max deg ~ 2x avg
-            ell_bytes = blk.n * K_est * _TILE_BYTES
-            return "pose_sharded" if ell_bytes > device_hbm_budget_bytes else "ell"
+            ell_bytes = blk.n * K_est * blk.dof * blk.dof * blk.values.dtype.itemsize
+            return "pose_sharded" if _over_budget(ell_bytes, budget) else "ell"
         # Multi-block graphs (VIO pose+vel+bias, sim3+landmark, 3+ blocks):
         # factor_parallel is DP over residual blocks — block-structure-
         # agnostic (SURVEY.md §2.3 DP row) — so it is the documented mesh
         # route up to the dense-solve ceiling (the replicated solve is the
         # same dense Cholesky the single-chip dense path uses).  Beyond
         # that ceiling no sharded path speaks 3+-block structure; warn
-        # loudly instead of silently solving replicated (VERDICT r4 #5).
+        # loudly instead of silently solving replicated.
         if graph.total_dof <= dense_dof_limit:
             return "factor_parallel"
         import warnings
@@ -242,12 +264,12 @@ def route_auto(
             return "schur_large"
         pb, lb = blocks[pose_name], blocks[lm_name]
         itemsize = pb.values.dtype.itemsize
-        # Conditioning route (VERDICT r2 weak #3): in f32, monocular
-        # low-parallax geometry squares Jl's condition number through
-        # Hll = Jl^T Jl; the square-root (QR) elimination tracks the f64
-        # trajectory ~300x closer there (docs/PERFORMANCE.md "f32
-        # conditioning").  Stereo/RGB-D observations carry depth, so
-        # conditioning never bites — mono 2-dof residuals only.
+        # Conditioning route: in f32, monocular low-parallax geometry
+        # squares Jl's condition number through Hll = Jl^T Jl; the
+        # square-root (QR) elimination tracks the f64 trajectory far more
+        # closely there (tests/test_solve_auto.py).  Stereo/RGB-D
+        # observations carry depth, so conditioning never bites — mono
+        # 2-dof residuals only.
         if (
             pb.n * pb.dof <= 4096
             and itemsize == 4
@@ -286,11 +308,10 @@ def route_auto(
     if len(blocks) == 1 and graph.total_dof > dense_dof_limit:
         blk = next(iter(blocks.values()))
         # Stiff 2D graphs need EXACT solves (PCG stalls in a worse basin:
-        # M3500 668 vs 622, docs/PERFORMANCE.md) — beyond the dense
-        # ceiling, the multifrontal sparse Cholesky is the exact option.
-        # 2D dissection separators stay narrow, so the fill is cheap there;
-        # 3D-ish SE(3) graphs keep the measured-fast ELL PCG default
-        # (sphere separators are wide — see PERFORMANCE.md round-3 notes).
+        # M3500 668 vs 622) — beyond the dense ceiling, the multifrontal
+        # sparse Cholesky is the exact option.  2D dissection separators
+        # stay narrow, so the fill is cheap there; 3D-ish SE(3) graphs keep
+        # the ELL PCG default (sphere separators are wide).
         if blk.dof == 3 and blk.kind in ("se2", "euclidean"):
             return "sparse_chol"
         return "ell"
@@ -303,7 +324,7 @@ def solve_auto(
     mesh=None,
     dense_dof_limit: int = 12000,
     dense_hpl_budget_bytes: int = 1 << 30,
-    device_hbm_budget_bytes: int = 10 << 30,
+    device_hbm_budget_bytes: int | None = None,
     schur_sparse_pair_budget: int = 2_000_000,
     cm_obs_crossover: int = 250_000,
 ):
@@ -316,8 +337,7 @@ def solve_auto(
     * camera + landmark beyond ~2M observations -> streamed component-major
       Schur (solver/schur_large.py); accepts pose-unary prior batches too
     * single variable block, total dof <= dense_dof_limit -> dense Cholesky
-      (exact solves; pure MXU — measured fastest AND most robust up to
-      ~10k dof, e.g. M3500)
+      (exact solves; the most robust choice up to ~10k dof, e.g. M3500)
     * single variable block, larger -> block-sparse ELL + PCG
 
     With ``mesh``: dispatches among the four sharding strategies by graph
@@ -404,7 +424,7 @@ def solve_auto(
     return solve(graph, opts)
 
 
-__all__ += ["solve_auto", "route_auto"]
+__all__ += ["solve_auto", "route_auto", "device_memory_budget"]
 
 
 def solve_batched(graphs, options=None):

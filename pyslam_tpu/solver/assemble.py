@@ -1,6 +1,6 @@
 """Normal-equation assembly: H = J^T W J, g = -J^T W r, chi2.
 
-TPU-native replacement for the reference's scipy.sparse.bmat + explicit
+On-device replacement for the reference's scipy.sparse.bmat + explicit
 J^T J products (pyslam/problem.py solve_one_iter, SURVEY.md §3.1 hot loops
 2-3).  The robust IRLS weight (loss.weight, elementwise — reference
 semantics) is fused into the same pass, so residual evaluation, reweighting,

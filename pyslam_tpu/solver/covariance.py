@@ -1,6 +1,6 @@
-"""Posterior covariance — the TPU-native replacement for the reference's
+"""Posterior covariance — the on-device replacement for the reference's
 ``Problem.compute_covariance`` full-inverse (pyslam/problem.py, SURVEY.md
-§3.4 "the TPU equivalent is covariance columns via selective solves").
+§3.4 "the device equivalent is covariance columns via selective solves").
 
 Two paths:
   * ``full_covariance``      — dense (J^T W J)^-1 by Cholesky solves against

@@ -9,7 +9,7 @@ counterpart (pyslam solves batch problems only, SURVEY.md §2.1); this is
 the fixed-lag design of production smoothers (iSAM2-style fixed-lag /
 OKVIS / VIO sliding windows).
 
-TPU shape
+Device shape
 ---------
 * Static shapes everywhere: the window is padded to exactly ``window``
   poses and ``capacity`` factors (weight 0 = hole), so ONE compiled update
@@ -18,7 +18,7 @@ TPU shape
   not flops, is what matters at this scale — CLAUDE.md VO lessons).
 * The window GN step reuses the standard kernel + ``assemble_dense`` path
   (graph/factor_defs.py, solver/assemble.py): at window scale (W*dof of a
-  few hundred) the dense Hessian factorization is pure MXU work.
+  few hundred) the dense Hessian factorization is pure dense-matrix work.
 * Factor bookkeeping (slot ids, insert pointers) lives on host in numpy —
   it is O(window) per frame and shapes the device call, never rides in it.
 
@@ -328,7 +328,7 @@ class FixedLagLandmarkSmoother:
     design.  Complements FixedLagSmoother (pose-only windows) and
     IncrementalSmoother (unbounded growth).
 
-    TPU shape: the window state is one dense tangent vector in the
+    Device shape: the window state is one dense tangent vector in the
     FactorGraph's sorted block order — landmarks (L*ld dims) first, poses
     (W*d) after — so the prior (Hp, bp), the GN update, and both
     marginalizations are each ONE compiled executable for the whole

@@ -15,7 +15,7 @@ a surrogate from convex to the target non-convexity, alternating
   2. a closed-form per-factor weight update from the whitened residual
      norms at the current estimate.
 
-TPU shape: the outer loop is a handful of host iterations; everything hot
+Device shape: the outer loop is a handful of host iterations; everything hot
 (inner solves, residual evaluation) is the standard batched jitted path.
 
 No reference counterpart — capability beyond pyslam (SURVEY.md §2.1 lists

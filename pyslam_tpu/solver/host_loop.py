@@ -4,8 +4,8 @@ The fully device-resident loop (solver/lm.py, lax.while_loop) is right for
 single-program solves, but the sharded paths (dist/factor_parallel.py,
 dist/schur_reduce.py, dist/schur_cm.py) and the segment-streamed Venice path
 (solver/schur_large.py) drive one jitted *step* per iteration from the host —
-either because checkpointing hooks live between iterations or because a
-single XLA program must stay time-bounded on this TPU runtime.  Round 1 gave
+either because checkpointing hooks live between iterations or because the
+CG loop is driven from the host in bounded segments.  Round 1 gave
 each of those its own hand-rolled accept/reject loop with drifting stopping
 semantics; this module is the single implementation, mirroring
 solver/lm.solve's semantics (reference Options fields per SURVEY.md §2.1:
@@ -116,9 +116,8 @@ def host_lm_loop_speculative(linearize, solve_from, state, options: _lm.Options,
     what the next solve needs, so it is reused; on reject, the retained
     current linearization is re-solved at higher lambda with no new
     linearize at all.  Net: exactly ONE gradient linearization per
-    iteration and ZERO cost-only passes (measured at Venice scale the
-    cost-only pass is a full streaming sweep of the observation set — see
-    docs/PERFORMANCE.md).
+    iteration and ZERO cost-only passes (at Venice scale the cost-only
+    pass is a full streaming sweep of the observation set).
 
     Accept/reject and stopping decisions consume the same chi2 values as
     ``host_lm_loop`` (the cost at the trial point is identical whether it

@@ -1,10 +1,10 @@
-"""Incremental smoothing with bucketed static shapes — the TPU iSAM answer.
+"""Incremental smoothing with bucketed static shapes — the device-side iSAM answer.
 
 iSAM2 exists because CPU solvers must avoid refactoring the whole system
 per update, so they maintain a Bayes tree incrementally.  On this hardware
 the economics are different: a full batch solve of a 2k-pose graph is
 milliseconds once compiled (bench.py measurements), and the expensive
-resource is COMPILATION, which XLA charges per shape.  So the TPU-native
+resource is COMPILATION, which XLA charges per shape.  So the device-side
 incremental design is not incremental factorization but SHAPE REUSE:
 
   * variables and factors live in padded arrays whose capacity grows

@@ -1,6 +1,6 @@
 """Linear solvers for the normal equations.
 
-TPU-native replacements for the reference's scipy.sparse.linalg.spsolve /
+On-device replacements for the reference's scipy.sparse.linalg.spsolve /
 splu (pyslam/problem.py, SURVEY.md §3.1 hot loop 3):
 
   * ``cholesky_solve``  — dense blocked Cholesky via XLA (reduced camera

@@ -59,7 +59,7 @@ class Options:
     min_cost_decrease: float = 0.99
     allow_nondecreasing_steps: bool = False
     max_nondecreasing_steps: int = 3
-    # --- TPU-solver extensions ---
+    # --- solver extensions beyond the reference ---
     method: str = "lm"  # 'gn' (reference) | 'lm' (damping) | 'dogleg' (trust region)
     lambda_init: float = 1e-4
     lambda_up: float = 10.0

@@ -1,6 +1,6 @@
 """Schur-complement bundle adjustment: landmark marginalization on-device.
 
-TPU-native replacement for what the reference cannot do at all — its
+On-device replacement for what the reference cannot do at all — its
 ``Problem`` sends the full (poses + landmarks) system to scipy's spsolve
 (pyslam/problem.py, SURVEY.md §3.1 hot loop 3), which is infeasible beyond toy
 BA.  Here the landmark block-diagonal ``Hll`` (3x3 blocks) is eliminated in
@@ -15,7 +15,7 @@ one batched pass and only the reduced camera system ``S`` is solved
 Two linear-solve modes, both sharing the jitted LM trust-region loop
 (lm.solve):
 
-  * ``mode='dense'``  — materialize S (6C x 6C) via one MXU einsum over the
+  * ``mode='dense'``  — materialize S (6C x 6C) via one einsum over the
     observation blocks and factorize with dense Cholesky.  Right for
     C <= a few thousand cameras (config #4: 49 cams -> S is 294 x 294).
   * ``mode='pcg'``    — never materialize S: implicit Schur matvec
@@ -215,7 +215,7 @@ def _back_substitute(L_ll, W, ci, li, g_l, dx_p):
 
 def schur_solve_dense(parts, g, lam, opt: _lm.Options):
     """Materialized-S path: S built by scattering per-landmark outer products
-    of the coupling blocks (one MXU einsum per term), dense Cholesky solve."""
+    of the coupling blocks (one einsum per term), dense Cholesky solve."""
     Hpp, L_ll, W, ci, li, g_red = _schur_reduce(parts, lam, opt.method)
     C, dp = Hpp.shape[0], Hpp.shape[1]
     # Y_m = W_m Hll^-1_{l_m}  (M, dp, dl)
@@ -225,7 +225,7 @@ def schur_solve_dense(parts, g, lam, opt: _lm.Options):
     # Materialize the per-landmark accumulations U_l = sum_{m in l} W_m and
     # V_l = sum_{m in l} Y_m?  No: that is wrong for pairs (needs per-pair
     # products).  Correct dense form: Hpl (C*dp, L*dl) scattered, then
-    # S = Hpp_dense - Hpl (Hll^-1 blockdiag) Hpl^T via two MXU matmuls.
+    # S = Hpp_dense - Hpl (Hll^-1 blockdiag) Hpl^T via two matmuls.
     L_n, dl = Hll_inv.shape[0], Hll_inv.shape[-1]
     Hpl = jnp.zeros((C, dp, L_n, dl), Hpp.dtype)
     Hpl = Hpl.at[ci, :, li, :].add(W)

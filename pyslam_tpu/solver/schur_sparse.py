@@ -13,18 +13,18 @@ a pose graph, so:
 
   * ``schur_dense`` does not fit (C*dp beyond the dense ceiling), and
   * ``schur_pcg`` is iterative (and on stiff 2D graphs PCG is known to
-    stall in worse basins — the M3500 lesson, docs/PERFORMANCE.md),
+    stall in worse basins — the M3500 lesson),
 
 while S factors EXACTLY through the existing multifrontal block Cholesky
 (solver/sparse_chol.py) at O(fill).
 
-TPU-first split: the HOST enumerates, once per sparsity pattern, every
+Device-first split: the HOST enumerates, once per sparsity pattern, every
 ordered co-observation pair (obs_a, obs_b of the same landmark) and its
 flat position in the symmetric-ELL store of S (reusing build_ell_direct's
 vectorized edge layout on a structure-only pose graph), plus the nested
 dissection plan.  The DEVICE, per LM iteration, computes all pair blocks
 W_a Hll^-1 W_b^T in one batched einsum and assembles S with a single
-segment_sum — then factorizes on the MXU.  Unlike SCHUR_JACOBI's diagonal
+segment_sum — then factorizes on the device.  Unlike SCHUR_JACOBI's diagonal
 (schur.py, exact only when a camera observes a landmark at most once),
 the pair enumeration is exact under duplicate observations too.
 

@@ -11,11 +11,11 @@ rows have ZERO landmark involvement — they ARE the square root of the Schur
 complement, so the reduced camera system assembled from them equals S in
 exact arithmetic while never squaring Jl's condition number.
 
-TPU-first design:
+Device-first design:
   * landmarks bucketed by padded observation count (static shapes per
     bucket; padded rows are zeroed and provably inert),
   * Householder loop is 3 static unrolled reflections of batched
-    (L, n, .) arrays — pure VPU einsums, no per-landmark control flow,
+    (L, n, .) arrays — pure batched einsums, no per-landmark control flow,
   * LM damping enters as 3 augmented sqrt(lam * diag) rows per landmark
     BEFORE the QR (the square-root form of Marquardt damping), so the
     damped elimination is still solved by orthogonal transforms,

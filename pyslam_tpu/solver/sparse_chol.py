@@ -1,5 +1,5 @@
-"""Sparse direct block Cholesky — supernodal multifrontal factorization on
-the MXU (VERDICT r2 next #1).
+"""Sparse direct block Cholesky — supernodal multifrontal factorization as
+batched dense products on the device.
 
 The reference solves EVERY graph exactly through
 ``scipy.sparse.linalg.spsolve``/``splu`` (pyslam/problem.py, SURVEY.md §2.1
@@ -9,7 +9,7 @@ stalls in a worse basin, 50k-pose spheres need rtol 1e-8 / 600 iterations) —
 a stiff graph that does not fit dense had NO exact option.  This module is
 that option.
 
-TPU-first design — the sparsity lives on the HOST, the FLOPs on the MXU:
+Device-first design — the sparsity lives on the HOST, the FLOPs on the device:
 
   * Host (numpy, once per sparsity pattern): recursive BFS nested
     dissection builds a binary elimination tree — leaf interiors and
@@ -21,13 +21,12 @@ TPU-first design — the sparsity lives on the HOST, the FLOPs on the MXU:
       - ``tbl_l`` / ``tbl_r``: frontal entry <- position in the left/right
         child's update-matrix pool.  A binary tree means every frontal
         entry has AT MOST two child contributions, so the multifrontal
-        extend-add — normally a scatter — becomes two gathers.  TPU
-        gathers are fast, scatters are slow (CLAUDE.md measurements);
-        the numeric hot path here contains NO scatter at all.
+        extend-add — normally a scatter — becomes two gathers; the
+        numeric hot path here contains NO scatter at all.
   * Device (jit, per LM iteration): for each wave, batched over its nodes:
     gather frontals, add child updates, one batched Cholesky of the
     eliminated block, one batched triangular solve for the boundary panel,
-    one batched MXU matmul for the Schur update.  Static shapes per wave
+    one batched matmul for the Schur update.  Static shapes per wave
     (nodes padded to the wave max; pad columns carry a unit diagonal and
     are provably inert).
   * Solves are level-scheduled batched triangular solves (forward over
@@ -574,7 +573,7 @@ def locate_fill_pairs(plan: CholPlan, pairs):
 def selected_inverse_marginals(plan: CholPlan, factors, pairs=None):
     """ALL (d, d) marginal covariance blocks of H^-1 in one top-down sweep
     over the multifrontal factors — the Takahashi / selected-inversion
-    recursion, wave-scheduled on the MXU.
+    recursion, wave-scheduled on the device.
 
     Column solves cost O(nb * d * fill) total (one solve per tangent dof —
     infeasible at 50k poses); this computes every diagonal block in ~2x the
@@ -712,7 +711,7 @@ def solve_sparse_chol(
     leaf_size: int = 32,
 ):
     """GN/LM with EXACT sparse direct linear solves (multifrontal block
-    Cholesky).  The TPU-native analogue of the reference's
+    Cholesky).  The on-device analogue of the reference's
     spsolve-everywhere capability: same dx as the dense path, O(fill)
     memory.  Shares the jitted LM trust-region loop (lm.solve)."""
     if plan is None:

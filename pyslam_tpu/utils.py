@@ -1,10 +1,35 @@
 """Numeric utilities — parity with ``pyslam/utils.py`` (SURVEY.md §1 L1):
-``invsqrt``, ``stackmul``, ``bilinear_interpolate``; TPU-native additions.
+``invsqrt``, ``stackmul``, ``bilinear_interpolate``; device-side additions;
+and the persistent compile-cache placement shared by every entry point.
 """
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
+
 import jax.numpy as jnp
+
+CHECKOUT_DIR = Path(__file__).resolve().parent.parent
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    If ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and this
+    sets nothing, so the cache can be placed from outside.  Otherwise the
+    cache lives in ``<checkout>/.jax_cache`` (git-ignored), a fixed path
+    derived from this file's location so that every process of one checkout
+    shares it.
+    """
+    import jax
+
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = str(CHECKOUT_DIR / ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def invsqrt(A):
@@ -25,7 +50,7 @@ def invsqrt(A):
 def stackmul(A, B):
     """Batched matrix multiply over leading dims (reference: pyslam/utils.py).
 
-    On TPU this lowers to an MXU batched matmul via XLA.
+    XLA lowers this to one batched matmul.
     """
     return jnp.matmul(A, B)
 
@@ -78,11 +103,10 @@ def pack_corners(im):
     """(H, W) image -> (H*W, 4) per-pixel corner tuples
     [f(v,u), f(v,u+1), f(v+1,u), f(v+1,u+1)] with edge padding.
 
-    TPU gathers cost per gathered ROW, so bilinear sampling via ONE gather
-    from this packed layout replaces the four separate corner gathers of
-    ``bilinear_interpolate`` — measured the dominant cost of the dense
-    photometric kernel at VGA (round 2).  Packing itself is elementwise
-    (shifted slices), one pass per image."""
+    Bilinear sampling via ONE gather from this packed layout replaces the
+    four separate corner gathers of ``bilinear_interpolate``: the corner
+    gathers were the dominant cost of the dense photometric kernel at VGA.
+    Packing itself is elementwise (shifted slices), one pass per image."""
     r = jnp.pad(im, ((0, 1), (0, 1)), mode="edge")
     return jnp.stack(
         [r[:-1, :-1], r[:-1, 1:], r[1:, :-1], r[1:, 1:]], axis=-1
@@ -120,11 +144,10 @@ def kahan_sum(x, chunk: int = 4096):
     XLA's reduction is already pairwise/tree (error ~ O(log n) ulp); this
     sequential-over-chunks two-sum drives the error to O(1) ulp of the
     total, for accumulations where f32 tree error would matter (hundreds of
-    millions of similarly-signed terms).  MEASURED (round 2, sphere2500 /
-    M3500 / Venice scales): plain f32 chi2 evaluation is already within
-    ~3e-5 relative of x64 — the round-1 parity gap was CG truncation, not
-    summation (docs/PERFORMANCE.md "Precision") — so nothing on the current
-    hot paths uses this; it exists for future >1e8-term reductions.
+    millions of similarly-signed terms).  Nothing on the current hot paths
+    uses this: plain f32 chi2 evaluation has held the f64 gates at
+    sphere2500 / M3500 / Venice scales.  It exists for future >1e8-term
+    reductions.
     """
     import jax
 

@@ -110,7 +110,7 @@ class TestParityHarness:
     def test_selftest_runs_end_to_end(self, tmp_path):
         """bench/parity.py --selftest contract (VERDICT r2 next #8): write
         real-format dataset files through the io writers, load them back,
-        run stand-in + TPU solver, pass every parity gate."""
+        run stand-in + device solver, pass every parity gate."""
         import sys, pathlib
 
         root = pathlib.Path(__file__).resolve().parents[1]

@@ -92,10 +92,10 @@ def test_solve_matches_scipy_reference(obs_type):
     )
     g = build.landmark_slam_2d(data, dtype=jnp.float64)
     solved, info = solve_auto(g, Options(method="gn", max_iters=25))
-    chi2_tpu = float(info.chi2) if hasattr(info, "chi2") else float(info[-1])
+    chi2_dev = float(info.chi2) if hasattr(info, "chi2") else float(info[-1])
 
     _, _, chi2_ref, _ = solve_landmark_slam_2d(data, max_iters=25)
-    assert chi2_tpu <= chi2_ref * (1 + 1e-6) + 1e-9
+    assert chi2_dev <= chi2_ref * (1 + 1e-6) + 1e-9
 
     # trajectory actually recovered: body-to-world positions near gt
     T_opt = np.asarray(solved.blocks["poses"].values)

@@ -238,9 +238,9 @@ class TestUint8Frames:
         np.testing.assert_allclose(Tu, Tf, atol=5e-2)
 
 
-class TestTPUBlockMatcher:
+class TestPlaneSweepMatcher:
     def test_known_constant_disparity(self):
-        """TPU plane-sweep matcher recovers an exact constant-disparity pair
+        """Plane-sweep matcher recovers an exact constant-disparity pair
         to sub-0.05-px accuracy (pipelines/stereo_match.py)."""
         import numpy as np
 
@@ -254,7 +254,7 @@ class TestTPUBlockMatcher:
         for d_true in (12, 23):
             left = tex[:, pad : pad + W]
             right = tex[:, pad + d_true : pad + d_true + W]
-            disp = compute_disparity(left, right, matcher="tpu", num_disparities=D)
+            disp = compute_disparity(left, right, matcher="plane_sweep", num_disparities=D)
             m = np.isfinite(disp)
             assert m.mean() > 0.5
             err = np.abs(disp[m] - d_true)
@@ -277,14 +277,14 @@ class TestTPUBlockMatcher:
         d_true = 17
         left = tex[:, pad : pad + W]
         right = tex[:, pad + d_true : pad + d_true + W]
-        d_tpu = compute_disparity(left, right, matcher="tpu", num_disparities=48)
+        d_ps = compute_disparity(left, right, matcher="plane_sweep", num_disparities=48)
         d_cv = compute_disparity(left, right, matcher="bm", num_disparities=48)
-        both = np.isfinite(d_tpu) & np.isfinite(d_cv)
+        both = np.isfinite(d_ps) & np.isfinite(d_cv)
         assert both.mean() > 0.3
-        agree = np.abs(d_tpu[both] - d_cv[both])
+        agree = np.abs(d_ps[both] - d_cv[both])
         assert np.median(agree) < 1.0
 
-    def test_stereo_pipeline_with_tpu_matcher(self):
+    def test_stereo_pipeline_with_plane_sweep_matcher(self):
         """End-to-end stereo tracking with the on-device matcher."""
         import numpy as np
 
@@ -309,7 +309,7 @@ class TestTPUBlockMatcher:
             right = tex[:, pad + shift_px + int(round(d_px)) :][:, :W]
             return left, right
 
-        pipe = DenseStereoPipeline(cam, pyrlevels=2, matcher="tpu")
+        pipe = DenseStereoPipeline(cam, pyrlevels=2, matcher="plane_sweep")
         pipe.track(*pair(0))
         # camera translates +x by one pixel-projected step: world shift
         dx_world = Z / fu  # 1 px at depth Z

@@ -86,10 +86,9 @@ class TestSchurSqrt:
         """Genuinely low-parallax MONOCULAR geometry (clustered cameras,
         bal.synthetic_bal(cam_cluster=...)): the sqrt path must stay within
         ~1e-4 relative of the f64 reference trajectory where the
-        normal-equation path deviates at the 1e-3 level (measured; see
-        docs/PERFORMANCE.md 'Square-root marginalization' for the honest
-        mixed result across regimes — this asserts only the measured
-        cluster=0.05 case)."""
+        normal-equation path deviates at the 1e-3 level (the result is
+        mixed across regimes — this asserts only the cluster=0.05
+        case)."""
         data = bal.perturbed(
             bal.synthetic_bal(n_cams=6, n_pts=50, seed=0, cam_cluster=0.05),
             seed=1,

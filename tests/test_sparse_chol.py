@@ -3,7 +3,7 @@
 The load-bearing claim is EXACTNESS: the multifrontal solve must equal the
 dense Cholesky solve (same dx, same converged chi2) while never forming a
 (D, D) matrix — the reference's spsolve-everywhere capability (SURVEY.md
-§2.1 Problem row, §2.2 spsolve->TPU table)."""
+§2.1 Problem row, §2.2 spsolve replacement table)."""
 
 import jax
 import jax.numpy as jnp
